@@ -2,16 +2,16 @@
 binary on the SAME frames (VERDICT r2 item 3).
 
 The corruption model (utils/synthetic.py CorruptionConfig) is deterministic
-in (seed, frame, cam), so the reference binary and the TPU pipeline see
+in (seed, frame, cam), so the reference binary and this pipeline see
 byte-identical corrupted frames; both ATEs come from the same
 utils/metrics.ate_rmse. The per-frame inlier-ratio trace proves RANSAC is
 doing real rejection work (reference's core mechanism:
 src/vo/StereoVisualOdometry.cpp:58-114).
 
-Writes benchmarks/corrupted_r04.json; the reference measurement is cached in
+Writes benchmarks/corrupted.json; the reference measurement is cached in
 benchmarks/reference_cpu_corrupted.json (re-measure with BENCH_REMEASURE=1).
-NOTE: the host has 2 CPUs — the reference run and the TPU timing are
-serialized so neither starves the other.
+The reference run and the device timing are serialized so neither starves
+the other of host cores.
 """
 
 from __future__ import annotations
@@ -95,17 +95,20 @@ def measure_reference():
         "ok_frames": summary["ok_frames"],
         "n_frames": N_REF_FRAMES,
         "config": "reference defaults on corrupted frames "
-                  "(same CorruptionConfig pixels as the TPU run)",
+                  "(same CorruptionConfig pixels as the device run)",
     }
     REF_CACHE.write_text(json.dumps(rec, indent=1))
     return rec
 
 
-def measure_tpu():
+def measure_device():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from uasl_motion_estimation_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
 
     from uasl_motion_estimation_tpu.models.pipeline import (
         OdometryPipeline,
@@ -138,7 +141,7 @@ def measure_tpu():
     gt = seq.gt_positions()
     ate = float(ate_rmse(traj[:, :3, 3], gt))
     # ATE is trajectory-length dependent (round-3 advisor): the
-    # reference-vs-TPU accuracy comparison must use the SAME first
+    # reference-vs-device accuracy comparison must use the SAME first
     # N_REF_FRAMES the cached reference run covers
     ate_ref_span = float(
         ate_rmse(traj[:N_REF_FRAMES, :3, 3], gt[:N_REF_FRAMES])
@@ -153,7 +156,7 @@ def main():
         ref = measure_reference()
     else:
         ref = json.loads(REF_CACHE.read_text())
-    fps, ate, ate_ref_span, ratios, inliers = measure_tpu()
+    fps, ate, ate_ref_span, ratios, inliers = measure_device()
     result = {
         "metric": "stereo VO frames/s/chip, corrupted world (photometric "
                   "gain/bias/noise + 2 moving objects + occluder)",
@@ -179,7 +182,7 @@ def main():
                 "length-independent.",
     }
     print(json.dumps(result))
-    (REPO / "benchmarks" / "corrupted_r04.json").write_text(
+    (REPO / "benchmarks" / "corrupted.json").write_text(
         json.dumps(result, indent=1)
     )
 

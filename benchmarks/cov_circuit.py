@@ -2,8 +2,8 @@
 stitching under degraded overlap candidates, covariance informativeness on
 rendered frames, and the unified engine's emitted pose-covariance chain.
 
-Writes benchmarks/cov_circuit_r05.json and prints it. Run on TPU (engine
-block) — the stitching blocks are host math and run anywhere.
+Writes benchmarks/cov_circuit.json and prints it. The engine block runs on
+the default backend; the stitching blocks are host math.
 """
 
 from __future__ import annotations
@@ -143,8 +143,11 @@ def block_engine_covariances():
     covariances and the chain's growth."""
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from uasl_motion_estimation_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
 
     from uasl_motion_estimation_tpu.models.pipeline import default_config
     from uasl_motion_estimation_tpu.models.smoother import (
@@ -203,6 +206,6 @@ if __name__ == "__main__":
         "engine_covariances": block_engine_covariances(),
     }
     print(json.dumps(result, indent=2))
-    out = REPO / "benchmarks" / "cov_circuit_r05.json"
+    out = REPO / "benchmarks" / "cov_circuit.json"
     out.write_text(json.dumps(result, indent=2))
     print(f"wrote {out}")

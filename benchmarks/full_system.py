@@ -17,7 +17,7 @@ degraded-frame policy applied. The artifact is self-describing:
 ``pass_ate_gate`` / ``pass_fps_gate`` record whether the run met its own
 acceptance criteria (round-3 advisor: a failing run must not publish an
 artifact indistinguishable from a passing one). Writes
-benchmarks/full_system_r05.json.
+benchmarks/full_system.json.
 """
 
 from __future__ import annotations
@@ -47,8 +47,11 @@ INLIER_FLOOR = float(os.environ.get("BENCH_INLIER_FLOOR", "0.15"))
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from uasl_motion_estimation_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from uasl_motion_estimation_tpu.models.pipeline import (
@@ -166,7 +169,7 @@ def main():
                 "track table amortizes detection across the window.",
     }
     print(json.dumps(result))
-    (REPO / "benchmarks" / "full_system_r05.json").write_text(
+    (REPO / "benchmarks" / "full_system.json").write_text(
         json.dumps(result, indent=1)
     )
     assert ate_ba < ate_vo, (ate_vo, ate_ba)

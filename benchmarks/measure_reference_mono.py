@@ -3,7 +3,7 @@
 Runs the unmodified reference mono path (MonoVisualOdometry ->
 cv::findEssentialMat + cv::recoverPose, compiled by
 reference_baseline/build.sh) with its standard OpenCV consumer front-end on
-the SAME synthetic EuRoC-sized left-camera frames the TPU mono bench uses
+the SAME synthetic EuRoC-sized left-camera frames the device mono bench uses
 (extra_configs.bench_mono: 752x480, seed 3), chaining with the same known
 speed. Caches benchmarks/reference_cpu_mono.json (VERDICT r4 item 4a — the
 mono rows previously had no vs_baseline).
@@ -24,7 +24,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 N_FRAMES = int(sys.argv[1]) if len(sys.argv) > 1 else 13
-SPEED = 0.8  # synthetic-world speed, the same initial_speed the TPU bench gets
+SPEED = 0.8  # synthetic-world speed, the same initial_speed the device bench gets
 CACHE = REPO / "benchmarks" / "reference_cpu_mono.json"
 
 
@@ -37,7 +37,7 @@ def main():
         SyntheticStereoSequence,
     )
 
-    # the TPU mono bench's EuRoC-like rig (extra_configs.bench_mono)
+    # the device mono bench's EuRoC-like rig (extra_configs.bench_mono)
     rig = CameraRig(fu=458.65, fv=457.3, cu=367.2, cv=248.4, baseline=0.11,
                     height=480, width=752)
     seq = SyntheticStereoSequence(n_frames=N_FRAMES, rig=rig, seed=3)

@@ -6,7 +6,7 @@
 // (GFTT detection + PyrLK stereo matching and temporal tracking; the library
 // itself ships no front-end — see SURVEY.md TL;DR). Times the full per-frame
 // loop (front-end + RANSAC/GN pose solve), which is the same scope as the
-// TPU pipeline's per-frame step, and dumps the pose chain for ATE evaluation.
+// JAX pipeline's per-frame step, and dumps the pose chain for ATE evaluation.
 //
 // Usage: ref_vo <frames_dir> <n_frames> <fu> <fv> <cu> <cv> <baseline>
 //   frames_dir must contain L_%06d.png / R_%06d.png rendered by bench.py.

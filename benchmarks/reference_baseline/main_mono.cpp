@@ -13,7 +13,7 @@
 // MonoVisualOdometry.cpp:29-31), so a consumer of the published API cannot
 // propagate relative scale from library outputs. The chain therefore uses
 // a fixed known speed passed on the command line — the same initial-speed
-// courtesy the TPU mono pipeline bench receives (which can then propagate
+// courtesy the JAX mono pipeline bench receives (which can then propagate
 // relative scale from its own triangulated structure; the reference
 // consumer cannot).
 //

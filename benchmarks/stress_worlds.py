@@ -30,7 +30,7 @@ a few frames — a world artifact, not a framework property (measured: the
 post-turn match count decays to zero as wall depth crosses the disparity
 search range).
 
-Writes benchmarks/stress_r05.json. Run on TPU.
+Writes benchmarks/stress.json.
 """
 
 from __future__ import annotations
@@ -50,8 +50,11 @@ N = 30
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from uasl_motion_estimation_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
 
     from uasl_motion_estimation_tpu.models.frontend import KLTConfig
     from uasl_motion_estimation_tpu.models.pipeline import (
@@ -140,7 +143,7 @@ def main():
 
     result["pass_all"] = bool(all(
         v["pass"] for k, v in result.items() if isinstance(v, dict)))
-    out = REPO / "benchmarks" / "stress_r05.json"
+    out = REPO / "benchmarks" / "stress.json"
     out.write_text(json.dumps(result, indent=2))
     print(f"wrote {out}; pass_all={result['pass_all']}")
 

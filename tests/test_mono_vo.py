@@ -153,7 +153,7 @@ class TestMonoVO:
         budget the exact 5-point solver works with HALF the inlier ratio
         the 8-point pencil needs — sample success inlier^5 vs inlier^8.
 
-        Measured curve (benchmarks/mono_breakdown.json): at H=40 the
+        Measured curve (benchmarks/mono_breakdown.py, PERF.md): at H=40 the
         pencil sustains 40% outliers (8/8 success here) and collapses past
         60%; 5-point still solves 7/8 scenes at 65% outliers — it needs a
         ~35% inlier ratio where the pencil needs ~60%, the near-2x margin

@@ -51,6 +51,23 @@ class TestChain:
         np.testing.assert_allclose(got, serial_chain(motions), atol=1e-4)
 
 
+class TestMakeMesh:
+    def test_one_dimensional_over_first_devices(self):
+        mesh = parallel.make_mesh(4)
+        assert mesh.axis_names == (parallel.segments.SEG_AXIS,)
+        assert list(mesh.devices) == jax.devices()[:4]
+
+    def test_all_devices_by_default(self):
+        assert parallel.make_mesh().devices.size == jax.device_count()
+
+    def test_raises_when_too_few_devices(self):
+        """No silent fallback to another backend's devices."""
+        with pytest.raises(ValueError, match="need 9 devices, have 8"):
+            parallel.make_mesh(9)
+        with pytest.raises(ValueError, match="need 2 devices, have 1"):
+            parallel.make_mesh(2, devices=jax.devices()[:1])
+
+
 class TestShardedSequence:
     @pytest.fixture(scope="class")
     def setup(self):

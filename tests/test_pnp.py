@@ -2,7 +2,7 @@
 
 The reference has no minimal solver — it seeds RANSAC hypotheses with a full
 GN optimisation (src/vo/StereoVisualOdometry.cpp:59-71); these solvers are the
-TPU-native closed-form replacement (BASELINE config 1 names P3P).
+batched closed-form replacement (BASELINE config 1 names P3P).
 """
 
 import jax

@@ -1,6 +1,6 @@
 """Stress-regime regression tests (VERDICT r4 item 5): adversarial
 trajectories and low-texture stretches through the staged VO engine — the
-full gated artifact lives in benchmarks/stress_worlds.py (stress_r05.json);
+full gated artifact lives in benchmarks/stress_worlds.py (PERF.md);
 these are the fast per-regime smoke gates."""
 
 import numpy as np
@@ -43,7 +43,7 @@ def test_pure_rotation_stretch():
 def test_moderate_turn_default_config():
     """A 5 deg/frame 90-degree corner must hold near-nominal accuracy on
     the DEFAULT config (the 10 deg/frame extreme needs the stress KLT
-    profile — measured in stress_r05.json)."""
+    profile — measured by benchmarks/stress_worlds.py, PERF.md)."""
     n = 18
     seq = SyntheticStereoSequence(
         n_frames=n, rig=RIG, seed=7, hall_half_width=45.0,

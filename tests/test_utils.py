@@ -115,6 +115,42 @@ class TestVizExtra:
         assert (tmp_path / "jd.png").exists()
 
 
+class TestCompileCache:
+    @pytest.fixture
+    def restore_config(self):
+        import jax
+
+        saved = (jax.config.jax_compilation_cache_dir,
+                 jax.config.jax_persistent_cache_min_compile_time_secs)
+        yield jax
+        jax.config.update("jax_compilation_cache_dir", saved[0])
+        jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                          saved[1])
+
+    def test_uses_environment_variable(self, restore_config, monkeypatch,
+                                       tmp_path):
+        from uasl_motion_estimation_tpu.utils.compile_cache import (
+            enable_compile_cache,
+        )
+
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert enable_compile_cache() == str(tmp_path)
+        assert restore_config.config.jax_compilation_cache_dir == str(tmp_path)
+
+    def test_defaults_to_checkout(self, restore_config, monkeypatch):
+        from pathlib import Path
+
+        from uasl_motion_estimation_tpu.utils.compile_cache import (
+            enable_compile_cache,
+        )
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        path = Path(enable_compile_cache())
+        assert path.name == ".jax_cache"
+        assert (path.parent / "chip_smoke.py").exists()
+        assert restore_config.config.jax_compilation_cache_dir == str(path)
+
+
 class TestProfiling:
     def test_stage_timer(self):
         from uasl_motion_estimation_tpu.utils.profiling import StageTimer

@@ -30,8 +30,7 @@ geometrically symmetric and omitted here — the left-camera structure
 already constrains the single scale parameter.
 
 All device work per frame (detect -> KLT -> mono RANSAC -> MI match ->
-MI-LM scale) lives in ONE jit; MI scoring routes through the Pallas VMEM
-kernel on TPU (ops/pallas/mi.py).
+MI-LM scale) lives in ONE jit.
 """
 
 from __future__ import annotations

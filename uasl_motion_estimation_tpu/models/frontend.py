@@ -6,7 +6,7 @@ feature_types.h:91-194) and BASELINE.json makes GFTT + ZNCC/MI matching +
 pyramidal KLT native requirements. Design is batch-first:
 
 * stereo matching scores every (feature x disparity) pair at once — ZNCC as a
-  single ``einsum`` over normalized patch vectors (MXU), MI as batched one-hot
+  single ``einsum`` over normalized patch vectors, MI as batched one-hot
   joint-histogram matmuls (ops/similarity.py);
 * KLT runs all features through every pyramid level/iteration in lock-step
   with validity masking (no per-feature control flow).
@@ -35,9 +35,6 @@ class MatcherConfig(NamedTuple):
     mi_bins: int = 20
     mi_min_score: float = 0.4  # MI acceptance (bits)
     refine_iters: int = 2  # 1-D photometric subpixel refinement steps
-    # MI scoring backend: None = auto (Pallas VMEM kernel on TPU, jnp
-    # one-hot matmuls elsewhere); True/False forces a path (test-only).
-    use_pallas: bool | None = None
     # Search width when a per-feature disparity prior is available (the
     # quad-matcher's cur-pair match reuses the prev-pair disparity of each
     # tracked feature): candidates span prior +/- prior_width/2. Sized for
@@ -50,19 +47,16 @@ class MatcherConfig(NamedTuple):
 
 
 class KLTConfig(NamedTuple):
-    # 4 levels = OpenCV calcOpticalFlowPyrLK's default maxLevel=3; measured
-    # on the v5e headline bench: 147.7 fps at 4 levels vs ~138 at 5, with
-    # ATE far below the acceptance bar either way. Sequences with very large
+    # 4 levels = OpenCV calcOpticalFlowPyrLK's default maxLevel=3; ATE is far
+    # below the acceptance bar at 4 or 5. Sequences with very large
     # inter-frame flow (fast rotation, low fps) should raise this to 5.
     n_levels: int = 4
     window_radius: int = 5
     iters: int = 10
     # Coarse levels (> 0) only need to land inside the next-finer level's
-    # convergence basin (~1-2 px at that level), not converge fully — the
-    # in-situ ablation (benchmarks/profile_klt_internals.py) puts the
-    # iteration loop at ~1.9 ms/frame of the 3.4 ms KLT stage, and a
-    # straggler track keeps the whole lock-step batch iterating, so capping
-    # coarse levels is the honest cut.
+    # convergence basin (~1-2 px at that level), not converge fully, and a
+    # straggler track keeps the whole lock-step batch iterating, so coarse
+    # levels get a smaller iteration cap.
     iters_coarse: int = 4
     min_eig_threshold: float = 1e-4
     max_residual: float = 12.0  # mean abs intensity error acceptance
@@ -72,20 +66,14 @@ class KLTConfig(NamedTuple):
     max_displacement: float = 75.0
     tile_margin: int = 5  # px of local search room per level (tile gather)
     converge_px: float = 0.03  # early exit when every live update is below
-    # NOTE: a fused Pallas per-level kernel existed through round 2 but was a
-    # measured 1.8x loss vs the XLA tile path at every tried config (it
-    # serialized features per grid step while XLA batches them into large
-    # einsums; benchmarks/variants.json: 17.3 vs 9.8 ms/frame) — deleted in
-    # round 3 (VERDICT r2 weak #6: a tested-but-always-slower kernel is
-    # maintenance surface with no payoff).
 
 
 def _photometric_residual(patch: jax.Array, template: jax.Array) -> jax.Array:
     """Mean |patch - template| after removing the DC offset: the acceptance
     gate stays meaningful under per-frame exposure (gain/bias) changes, which
     would otherwise reject every track at ~8% gain drift (raw-SSD gating is
-    the OpenCV/reference behavior; this is the TPU rebuild's robustness
-    upgrade, exercised by the corrupted-world tests)."""
+    the OpenCV/reference behavior; this is the rebuild's robustness upgrade,
+    exercised by the corrupted-world tests)."""
     err = patch - template
     err = err - jnp.mean(err, axis=(-2, -1), keepdims=True)
     return jnp.mean(jnp.abs(err), axis=(-2, -1))
@@ -132,8 +120,8 @@ def match_stereo(
 
     if use_mi:
         # MI has no moment decomposition, so the cross-modal path stays
-        # patch-gather based; the (N x D) pair scoring routes through the
-        # Pallas VMEM joint-histogram kernel on TPU (jnp one-hot elsewhere)
+        # patch-gather based: (N x D) pairs scored as batched one-hot
+        # joint-histogram matmuls
         d_range = jnp.arange(cfg.max_disparity, dtype=img_left.dtype)
         cand = jnp.stack(
             [
@@ -147,9 +135,8 @@ def match_stereo(
             n, cfg.max_disparity, 2 * r + 1, 2 * r + 1
         )
         cand_ok = im.patch_in_bounds(cand, r + 1, h, w)  # (N, D)
-        scores = sim.mutual_information_batched(
-            patches_l[:, None], patches_r, bins=cfg.mi_bins,
-            use_pallas=cfg.use_pallas,
+        scores = sim.mutual_information(
+            patches_l[:, None], patches_r, bins=cfg.mi_bins
         )  # (N, D)
         scores = jnp.where(cand_ok, scores, -jnp.inf)
         min_score = cfg.mi_min_score
@@ -272,12 +259,11 @@ def klt_track(
     ``iters_coarse`` (levels > 0) lock-step iterations of the 2x2 LK solve
     with masked updates and a batch-wide convergence exit.
 
-    Memory-system design (measured on TPU v5e): per level, each feature
-    gathers ONE local tile of the next image around its incoming guess; the
-    inner iterations then resample the window from that tile with separable
-    bilinear matmuls (ops/image.py sample_tiles) instead of issuing 4 gather
-    taps per pixel per iteration — the global-gather formulation spent
-    200 ms/frame purely in gathers. Iterations that would leave the tile
+    Memory-system design: per level, each feature gathers ONE local tile of
+    the next image around its incoming guess; the inner iterations then
+    resample the window from that tile with separable bilinear matmuls
+    (ops/image.py sample_tiles) instead of issuing 4 gather taps per pixel
+    per iteration. Iterations that would leave the tile
     clamp to its border; the final global residual check rejects any track
     that actually needed to travel further (the coarse levels absorb large
     motion, so margin px per level covers the Lucas-Kanade basin anyway).

@@ -175,8 +175,8 @@ def run_mono_staged(
     (or that failed outright) are re-solved with the exact 5-point in
     separate per-step dispatches. The solver-level lax.cond escalation is
     useless inside the scan — under the chunk vmap a cond lowers to select
-    and BOTH branches execute for every step (measured: "hybrid" in-scan
-    ran at 5-point speed, 3.7 vs 33.7 fps). Easy sequences therefore pay
+    and BOTH branches execute for every step, so "hybrid" in-scan would run
+    at 5-point speed. Easy sequences therefore pay
     exactly the pencil8 scan; a collapsed step costs one extra dispatch.
     Escalated steps keep the scan's rel_scale estimate (the 5-point re-
     solve replaces the motion, not the scale bookkeeping).

@@ -1,6 +1,6 @@
 """Monocular visual odometry: batched essential-matrix RANSAC + cheirality.
 
-TPU-native re-design of ``MonoVisualOdometry``
+Batched JAX re-design of ``MonoVisualOdometry``
 (reference: include/MotionEstimation/vo/MonoVisualOdometry.h:21-53,
 src/vo/MonoVisualOdometry.cpp:7-87). The reference delegates its entire
 numeric core to OpenCV (``findEssentialMat`` 5-point RANSAC + ``recoverPose``,
@@ -73,24 +73,20 @@ class MonoVOParams(NamedTuple):
     # minimal solver (ops/fivepoint.py; reference parity:
     # cv::findEssentialMat's 5-point, MonoVisualOdometry.cpp:20). A 5-point
     # sample succeeds with probability inlier^5 vs inlier^8, the decisive
-    # factor at high outlier rates: the committed breakdown curve
-    # (benchmarks/mono_breakdown.json) shows 5point sustaining 75% outliers
-    # where the pencil fails at 40%.
+    # factor at high outlier rates: the breakdown curve
+    # (benchmarks/mono_breakdown.py; PERF.md) shows 5point sustaining 75%
+    # outliers where the pencil fails at 40%.
     #
-    # Default choice, MEASURED on-device (benchmarks/results_extra_configs
-    # .json, config_mono_vo, 752x480 pipeline): pencil8 8.62 fps vs 5point
-    # 2.10 fps at IDENTICAL ATE (0.0585 m) — the reference's default
-    # (5-point) is the measured-unaffordable option here at equal nominal
-    # accuracy, so the faster solver is the default and "5point" remains
-    # one config switch away for high-outlier regimes.
+    # Default: pencil8, the cheaper solver; on the 752x480 pipeline both
+    # reach the same ATE (0.0585 m, PERF.md), so "5point" remains one config
+    # switch away for high-outlier regimes. Its H100 cost is not measured.
     #
     # "hybrid" (round 5): pencil8 first; when its inlier RATIO collapses
     # below ``hybrid_ratio`` a full 5-point pass runs under lax.cond and
     # the higher-support solution wins. Easy frames pay only the pencil8
     # runtime; collapsed frames get the 5-point's inlier^5 sample-success
     # advantage exactly where the breakdown curve says it matters
-    # (benchmarks/mono_breakdown.json: 5-point sustains 75% outliers where
-    # the pencil fails at 40%).
+    # (5-point sustains 75% outliers where the pencil fails at 40%).
     solver: str = "pencil8"
     # hybrid escalation threshold: pencil8's best inlier count / valid
     # matches. The breakdown curve crosses at ~40% outliers, i.e. ~60%
@@ -387,9 +383,9 @@ def mono_vo_solve(
       valid: (N,) bool.
     """
     # Epipolar algebra runs on tiny matrices whose accuracy gates RANSAC
-    # scoring; the TPU's default f32 dot (bf16 passes) measurably degrades
-    # recovered rotations (0.6-3 deg vs <0.3 deg). Force full-precision
-    # matmuls here — at 8x9/3x3 sizes the cost is nil.
+    # scoring; a reduced-precision f32 dot (bf16 passes, TF32) measurably
+    # degrades recovered rotations (0.6-3 deg vs <0.3 deg). Force
+    # full-precision matmuls here — at 8x9/3x3 sizes the cost is nil.
     with jax.default_matmul_precision("highest"):
         if params.solver != "hybrid":
             return _mono_vo_impl(matches, valid, key, params)

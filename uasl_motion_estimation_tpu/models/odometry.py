@@ -270,6 +270,49 @@ class OdometrySystem:
         self.window_poses: list[np.ndarray] = []  # cam-to-world per window frame
         self.window_traj_idx: list[int] = []  # trajectory index per window frame
 
+    def get_state(self) -> dict[str, np.ndarray]:
+        """Every field of the running session (set by ``reset`` and the frame
+        loop) as host arrays — the checkpoint payload (utils/checkpoint.py).
+        """
+        state = {
+            "pose": np.asarray(self.pose),
+            "kf_pose": np.asarray(self.kf_pose),
+            "trajectory": np.asarray(self.trajectory),
+            "window_poses": np.asarray(self.window_poses).reshape(-1, 4, 4),
+            "window_traj_idx": np.asarray(self.window_traj_idx, np.int64),
+            "frame_idx": np.asarray(self.frame_idx),
+            "n_keyframes": np.asarray(self.n_keyframes),
+            "use_ba": np.asarray(self.use_ba),
+            "key": np.asarray(jax.random.key_data(self.key)),
+        }
+        if self.kf_left is not None:
+            state["kf_left"] = np.asarray(self.kf_left)
+        if self.table is not None:
+            for name, value in self.table._asdict().items():
+                state[f"table_{name}"] = np.asarray(value)
+        return state
+
+    def set_state(self, state: dict[str, np.ndarray]) -> None:
+        """Restore a session saved by ``get_state``."""
+        self.pose = np.array(state["pose"])
+        self.kf_pose = np.array(state["kf_pose"])
+        self.trajectory = list(np.array(state["trajectory"]))
+        self.window_poses = list(np.array(state["window_poses"]))
+        self.window_traj_idx = [int(i) for i in state["window_traj_idx"]]
+        self.frame_idx = int(state["frame_idx"])
+        self.n_keyframes = int(state["n_keyframes"])
+        self.use_ba = bool(state["use_ba"])
+        self.key = jax.random.wrap_key_data(jnp.asarray(state["key"]))
+        self.kf_left = (jnp.asarray(state["kf_left"]) if "kf_left" in state
+                        else None)
+        if "table_uv" in state:
+            self.table = tr.TrackTable(**{
+                name: jnp.asarray(state[f"table_{name}"])
+                for name in tr.TrackTable._fields
+            })
+        else:
+            self.table = None
+
     def process_pair(self, left, right) -> dict:
         left = jnp.asarray(left, jnp.float32)
         right = jnp.asarray(right, jnp.float32)

@@ -1,6 +1,6 @@
 """MI-based metric-scale estimation from a stereo baseline (ScaleState).
 
-TPU-native re-design of the reference's ``Optimiser<ScaleState, ...>``
+Batched JAX re-design of the reference's ``Optimiser<ScaleState, ...>``
 specialization — the library's cross-modal capability (multispectral stereo
 where intensity matching fails):
 
@@ -42,8 +42,6 @@ class ScaleConfig(NamedTuple):
     fd_step: float = 1.0  # dp = 1 px (optimisation.cpp:440)
     max_iter: int = 20  # OptimisationParams default (optimisation.h:31)
     use_lm: bool = True
-    # MI scoring backend: None = auto (Pallas kernel on TPU, jnp elsewhere)
-    use_pallas: bool | None = None
     # Coarse-to-fine init: evaluate the mean-MI objective at this many
     # log-spaced scale candidates spanning [s0/coarse_range, s0*coarse_range]
     # (ONE batched MI pass — all candidates x features scored together) and
@@ -79,8 +77,7 @@ def _patch_mi_and_weight(
     )
     pl = im.extract_patches(left, uv_l, r)
     pr = im.extract_patches(right, uv_r, r)
-    mi = sim.mutual_information_batched(pl, pr, bins=cfg.mi_bins,
-                                        use_pallas=cfg.use_pallas)
+    mi = sim.mutual_information(pl, pr, bins=cfg.mi_bins)
     if cfg.weighting:
         gx, _ = im.sobel(left)
         gp = im.extract_patches(jnp.abs(gx), uv_l, r)

@@ -10,7 +10,7 @@ section 3.5). Run literally, that loop is serial: each window must wait for
 the VO chain to reach it (models/odometry.py implements that latency-mode
 loop with per-frame host round-trips).
 
-The TPU-first re-design keeps the architecture — one track table, two
+The batched re-design keeps the architecture — one track table, two
 consumers — but makes the windows the unit of parallelism:
 
 1. **Window track tables**: windows tile the sequence at stride
@@ -21,9 +21,7 @@ consumers — but makes the windows the unit of parallelism:
    solved by the vmapped-RANSAC stereo VO with quad matches read straight
    from the track table — no second front-end (the round-3 system ran
    per-frame detection AND per-window re-tracking, paying ~2x the
-   front-end cost of plain VO; this engine is CHEAPER per frame than that
-   VO-only scan while also running BA: 188 vs 170 fps at the bench
-   config).
+   front-end cost of plain VO).
 3. **Batched BA**: all windows solve concurrently (vmapped dense-Schur LM,
    solvers/ba.py) initialized from their own VO motions; refined motions
    are installed per-motion under the best-support policy
@@ -120,9 +118,9 @@ class SmootherConfig(NamedTuple):
     # that wanders beyond this radius from its own init has followed
     # drifted window tails into a different optimum and is almost
     # certainly the wrong one. Validated ate_ba < ate_vo on four 40-frame
-    # worlds + the 500-frame world (diag_install_policies.py): without
-    # the cap the 500-frame BA chain is WORSE than VO (2.56 vs 1.94 m, a
-    # few giant installed motions dominating); with it, 1.60 m.
+    # worlds + the 500-frame world (install-policy ablation, PERF.md):
+    # without the cap the 500-frame BA chain is WORSE than VO (2.56 vs
+    # 1.94 m, a few giant installed motions dominating); with it, 1.60 m.
     install_disc_px: float = 4.8  # == 0.10 m at KITTI fu/depth
     install_disc_depth_m: float = 15.0  # nominal depth for dt -> px
 
@@ -237,7 +235,7 @@ def _init_window_problem_local(
     disparity (project3D semantics, StereoVisualOdometry.cpp:22-32)."""
     W = cfg.window
     p = cfg.pipe.vo
-    # fenced: chaining up to W-1 4x4 products at the TPU's default bf16-pass
+    # fenced: chaining up to W-1 4x4 products at a reduced (bf16-pass)
     # precision puts ~0.01 rad of noise on the init rotations — ~7 px of
     # systematic reprojection shift at KITTI focal lengths, which the 3-px
     # track gate below then turns into mass misclassification
@@ -296,11 +294,11 @@ class FullSystemResult(NamedTuple):
 # The scan above runs TWO front-ends: the VO scan detects + tracks + matches
 # in every frame, then the window stage re-detects and re-tracks its own
 # table — the round-3 integrated system paid ~2x the front-end cost of plain
-# VO (104.6 vs 169.8 fps, VERDICT r3 missing #4). The reference's consumer
+# VO. The reference's consumer
 # never does that: ONE WBA_Point track table feeds BOTH the per-frame VO
 # solve and the windowed BundleAdjuster (SURVEY.md section 3.5; WBA_Point,
 # feature_types.h:122-197). The unified engine is that architecture,
-# TPU-first:
+# batched:
 #
 #   * windows tile the sequence at stride ba_rate; each window detects once
 #     (its birth frame) and KLT/ZNCC-extends through window-1 frames;
@@ -310,9 +308,7 @@ class FullSystemResult(NamedTuple):
 #   * BA initializes from those VO motions and refines the window.
 #
 # Per ba_rate=4 frames this costs 1 detection instead of 5, one pyramid per
-# frame, and one stereo match per frame instead of two — the integrated
-# system becomes CHEAPER per frame than the round-3 VO-only scan while also
-# running BA. RANSAC keys derive from the global motion index (fold_in), so
+# frame, and one stereo match per frame instead of two. RANSAC keys derive from the global motion index (fold_in), so
 # overlapping windows and streaming/staged runs solve identical problems.
 
 
@@ -530,7 +526,7 @@ def _compose_from_chunks(
     a window born on a bad frame (occluder sweep) offers a young estimate
     from a starved table — measured at bench scale, min-age install
     DOUBLED the VO ATE by preferring 21-track age-0 solves over 80-track
-    age-2 ones (diag_install_policies.py). A BA install additionally
+    age-2 ones (install-policy ablation, PERF.md). A BA install additionally
     requires (a) min_frame_obs gated observations at both endpoint frames
     (degraded contract, MonoVisualOdometry.cpp:47-51 semantics) and (b)
     the refined motion to stay within the install_disc_px pixel-equivalent

@@ -1,6 +1,6 @@
 """Stereo visual odometry: vmapped-RANSAC + GN/LM 6-DoF pose engine.
 
-TPU-native re-design of ``StereoVisualOdometry``
+Batched JAX re-design of ``StereoVisualOdometry``
 (reference: include/MotionEstimation/vo/StereoVisualOdometry.h:41-92,
 src/vo/StereoVisualOdometry.cpp:22-342). The reference's sequential RANSAC —
 200 iterations, each running a full GN/LM optimization over 3 matches, then an
@@ -9,7 +9,7 @@ program:
 
   1. all ``n_ransac`` 3-point minimal samples are drawn at once from a PRNG key,
   2. a fixed-iteration Gauss-Newton solve runs for every hypothesis in parallel
-     (``vmap`` -> batched 6x6 normal-equation solves on the MXU),
+     (``vmap`` -> batched 6x6 normal-equation solves),
   3. inlier counts for all hypotheses x all matches are computed as one
      (H, N) residual tensor; argmax picks the winner,
   4. a final masked GN/LM refinement runs on the winning inlier set with the
@@ -153,8 +153,8 @@ def _jacobian(state: jax.Array, pts3: jax.Array, p: StereoVOParams) -> jax.Array
 def _normal_eq(state, pts3, obs, weights, p: StereoVOParams):
     """(JJ, Jr, mean-squared-residual-cost) over weighted matches.
 
-    The 6x6 normal equations need full f32 products — the TPU's default
-    mixed bf16 matmul precision visibly degrades the pose solution."""
+    The 6x6 normal equations need full f32 products — a reduced-precision
+    default (bf16 passes, TF32) visibly degrades the pose solution."""
     res = _residuals(state, pts3, obs, p)  # (N, 4)
     J = _jacobian(state, pts3, p)  # (N, 4, 6)
     w = weights[..., None]
@@ -251,8 +251,8 @@ def stereo_vo_solve(
     process() contract (enough matches, enough inliers, solver converged).
     """
     # Full-precision f32 matmuls: the 6-DoF normal equations and rotation
-    # applications are tiny, and the TPU's default bf16-pass dot loses real
-    # pose accuracy at 1000-px-scale coordinates (same failure class as the
+    # applications are tiny, and a reduced-precision dot (bf16 passes, TF32)
+    # loses real pose accuracy at 1000-px-scale coordinates (same failure class as the
     # BA solver — see solvers/ba.py ba_solve).
     with jax.default_matmul_precision("highest"):
         return _stereo_vo_impl(matches, valid, key, params, init)

@@ -3,7 +3,7 @@
 The reference tracks features across a sliding window with per-track deques
 (``WBA_Point<T>``: deque of features + frame indices + 3D location + unique id,
 reference: include/MotionEstimation/core/feature_types.h:122-197), grown and
-popped per frame. Deques don't jit, so the TPU-native form is a static
+popped per frame. Deques don't jit, so the array form is a static
 (max_tracks, window) structure-of-arrays with masks:
 
 * ``addMatch`` + ``pop()`` (feature_types.h:136-146) become a masked roll of

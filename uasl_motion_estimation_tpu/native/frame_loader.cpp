@@ -3,8 +3,8 @@
 // Native re-design of the reference's synchronous ImageReader
 // (reference: include/MotionEstimation/core/file_IO.h:300-421): frames are
 // decoded by a background thread pool into a bounded queue so PNG decode and
-// preprocessing overlap accelerator compute — at TPU frame rates the decode
-// is otherwise on the critical path. Supports the same two on-disk layouts:
+// preprocessing overlap accelerator compute — at accelerator frame rates the
+// decode is otherwise on the critical path. Supports the same two on-disk layouts:
 //   * KITTI:   L_%06d.png / R_%06d.png, rows cropped to `kitti_crop`
 //              (file_IO.cpp:313-340)
 //   * generic: cam{N}_image%05d[_appendix].png (file_IO.cpp:296-310)

@@ -1,10 +1,10 @@
-"""Exact 5-point minimal essential-matrix solver, TPU-expressible.
+"""Exact 5-point minimal essential-matrix solver, as fixed-shape numerics.
 
 The reference's mono path is Nister's 5-point inside
 ``cv::findEssentialMat`` (reference: src/vo/MonoVisualOdometry.cpp:20).
 Classical implementations finish with a non-symmetric eigendecomposition
 (Stewenius action matrix) or explicit 10th-degree polynomial root finding —
-neither lowers to TPU. This module reformulates both steps as fixed-shape
+neither has a fixed-shape batched form. This module reformulates both steps as fixed-shape
 numerics:
 
 1. **Nullspace**: the 5x9 epipolar system's 4-dim nullspace via SVD ->
@@ -26,9 +26,8 @@ numerics:
    a final exact projection onto the essential manifold.
 
 Everything vmaps over RANSAC samples. The degree-10 determinant runs as
-unrolled batched Gaussian elimination (det_unrolled) — XLA's LU custom
-call cost ~4 us per tiny matrix and dominated the solver (round 5:
-305 -> 190 ms per 200-sample RANSAC batch on v5e).
+unrolled batched Gaussian elimination (det_unrolled) instead of XLA's
+LU custom call.
 """
 
 from __future__ import annotations
@@ -100,11 +99,10 @@ def det_unrolled(M: jax.Array) -> jax.Array:
     """Batched small-matrix determinant via UNROLLED partially-pivoted
     Gaussian elimination in pure jnp ops.
 
-    ``jnp.linalg.det`` lowers to XLA's LU custom call, which costs ~4 us
-    per 10x10 matrix on TPU even at batch 25k (measured round 5 — it
-    dominated this solver at 82% of runtime). Unrolling the n-1 elimination
-    steps as batched elementwise ops + gathers runs the same algorithm
-    (partial pivoting, identical stability) at full VPU width. (..., n, n)
+    ``jnp.linalg.det`` lowers to XLA's LU custom call, one small
+    factorization per matrix. Unrolling the n-1 elimination steps as
+    batched elementwise ops + gathers runs the same algorithm (partial
+    pivoting, identical stability) as wide vector work. (..., n, n)
     -> (...,); n is static and small.
     """
     n = M.shape[-1]
@@ -161,7 +159,7 @@ def fivepoint_candidates(
       found real root of the degree-10 polynomial, masked.
     """
     # Full-precision f32 dots: the implicit-determinant sign bracketing is
-    # meaningless under the TPU's default bf16-pass matmuls (tiny 10x10
+    # meaningless under reduced-precision (bf16-pass, TF32) matmuls (tiny 10x10
     # algebra; cost is nil).
     with jax.default_matmul_precision("highest"):
         return _fivepoint_impl(p1, p2)

@@ -1,6 +1,6 @@
 """Projective geometry: homogeneous points, projection, triangulation, poses.
 
-TPU-native re-design of the reference's feature/pose types
+Batched JAX re-design of the reference's feature/pose types
 (reference: include/MotionEstimation/core/feature_types.h:25-268,
 src/core/feature_types.cpp:18-251). Instead of per-point C++ structs, all ops
 here are array-native: points are ``(..., 2|3|4)`` arrays, poses are pytrees of

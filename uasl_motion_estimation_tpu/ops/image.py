@@ -3,8 +3,8 @@
 New-scope front-end ops (the reference delegates detection/tracking to OpenCV
 and only ships a scanline NMS, feature_types.cpp:253-351; BASELINE.json adds
 GFTT/ZNCC/KLT as required capabilities). All ops are pure jnp on (H, W)
-float32 images, expressed as convolutions/reductions XLA maps onto the
-MXU/VPU; no data-dependent shapes.
+float32 images, expressed as convolutions/reductions that XLA fuses; no
+data-dependent shapes.
 """
 
 from __future__ import annotations
@@ -19,10 +19,9 @@ import numpy as np
 def _filter1d(img: jax.Array, taps, axis: int) -> jax.Array:
     """Small 1-D FIR filter along ``axis``, SAME padding (edge replicated).
 
-    Unrolled shifted adds instead of conv_general_dilated: XLA's generic conv
-    on 1x1-channel NCHW images wastes the MXU, while a handful of
-    slice+multiply+add ops are pure VPU traffic and fuse into one pass
-    (VERDICT r1 weak #8 — detection was the largest per-frame device cost).
+    Unrolled shifted adds instead of conv_general_dilated: a generic conv on
+    1x1-channel NCHW images wastes the matrix units, while a handful of
+    slice+multiply+add ops are elementwise traffic that fuses into one pass.
     """
     taps = np.asarray(taps, dtype=np.float64)
     r = len(taps) // 2
@@ -187,9 +186,9 @@ def detect_features(
     resp = jnp.where(in_border, resp, -jnp.inf)
 
     flat = resp.ravel()
-    # approx_max_k: hardware-accelerated approximate top-k (the exact top_k
-    # is sort-bound on TPU for ~500k-pixel response maps). Post-NMS maxima
-    # are sparse, so recall loss is negligible for detection.
+    # approx_max_k: approximate top-k (the exact top_k is sort-bound for
+    # ~500k-pixel response maps). Post-NMS maxima are sparse, so recall loss
+    # is negligible for detection.
     scores, idx = jax.lax.approx_max_k(flat, max_features)
     yx = jnp.stack(jnp.unravel_index(idx, (h, w)), axis=-1)
 
@@ -223,7 +222,7 @@ def detect_features_grid(
     The top-k formulation (detect_features) pays an approx_max_k over the
     ~0.5 MP response map and clusters features on strong texture; bucketing
     divides the image into ~max_features cells and keeps each cell's maximum
-    — a reshape+argmax, the cheapest possible selection on the VPU, and the
+    — a reshape+argmax, the cheapest possible selection, and the
     uniform spatial spread measurably improves pose conditioning (the classic
     VO bucketing trick). Strict 3x3 local-max, border and quality gates match
     the reference NMS semantics (feature_types.cpp:253-351).
@@ -317,16 +316,10 @@ def extract_tiles(img: jax.Array, anchors: jax.Array, size: int,
     """Integer (size x size_w) tiles with top-left corners ``anchors`` (N, 2)
     int32 [x, y]; out-of-bounds reads come from edge padding.
 
-    ONE block copy per feature — the building block that keeps patch work off
-    the slow random-access path (one tile per feature, then all sub-pixel
-    sampling happens inside the tile as matmuls; see sample_tiles). On TPU
-    this is the Pallas DMA kernel (ops/pallas/gather.py); elsewhere an XLA
-    gather."""
-    from .pallas.gather import gather_rects, pallas_gather_supported
-
+    ONE tile gather per feature (rows of ``size_w`` contiguous pixels); all
+    sub-pixel sampling then happens inside the tile as small matmuls (see
+    sample_tiles) instead of 4 scattered taps per pixel."""
     size_w = size if size_w is None else size_w
-    if pallas_gather_supported():
-        return gather_rects(img, anchors, size, size_w)
     h, w = img.shape
     pad_y, pad_x = size, size_w
     padded = jnp.pad(img, ((pad_y, pad_y), (pad_x, pad_x)), mode="edge")
@@ -343,7 +336,7 @@ def sample_tiles(tiles: jax.Array, offsets: jax.Array, kh: int,
     ``offsets`` (N, 2) [x, y] in tile coordinates.
 
     Bilinear interpolation is separable, so the sample is two small batched
-    matmuls (MXU) instead of 4 gather taps per pixel:
+    matmuls instead of 4 gather taps per pixel:
       patch = Wy @ tile @ Wx^T,  Wy[i, s] = max(0, 1 - |(y0 + i) - s|).
     Offsets are clamped so the patch stays inside the tile."""
     kw = kh if kw is None else kw
@@ -363,8 +356,8 @@ def sample_tiles(tiles: jax.Array, offsets: jax.Array, kh: int,
     wx = jnp.maximum(
         0.0, 1.0 - jnp.abs(ox[:, None, None] + ix[None, :, None] - ssw[None, None, :])
     )  # (N, kw, Sw)
-    # full f32 products: the TPU's default mixed-bf16 matmul truncates the
-    # image VALUES (the weights are exact one-hot/tent selections)
+    # full f32 products: a reduced-precision default (TF32 / bf16 passes)
+    # truncates the image VALUES (the weights are exact tent selections)
     tmp = jnp.einsum("nks,nst->nkt", wy, tiles, precision="highest")
     return jnp.einsum("nkt,njt->nkj", tmp, wx, precision="highest")
 

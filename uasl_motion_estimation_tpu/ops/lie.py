@@ -1,6 +1,6 @@
 """Rotation algebra: Euler angles, quaternions, SO(3) exp/log maps.
 
-TPU-native re-design of the reference's rotation utilities
+Batched JAX re-design of the reference's rotation utilities
 (reference: include/MotionEstimation/core/rotation_utils.h:34-268,
 src/core/rotation_utils.cpp:25-368). All functions are pure jnp, operate on
 trailing-dimension arrays, and are `vmap`/`jit` friendly (no data-dependent
@@ -18,7 +18,7 @@ Conventions
   ``exp_map_Mat``/``log_map_Mat`` (rotation_utils.h:191-218);
   ``quat_exp``/``quat_log`` mirror ``exp_map_Quat``/``log_map_Quat``.
 
-Default dtype is float32 (TPU-native); pass float64 inputs on CPU for
+Default dtype is float32 (the accelerator's); pass float64 inputs on CPU for
 high-precision testing.
 """
 

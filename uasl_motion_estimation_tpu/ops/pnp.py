@@ -3,8 +3,8 @@
 The reference generates each RANSAC hypothesis by running a full GN/LM
 optimisation on the 3-point minimal sample
 (src/vo/StereoVisualOdometry.cpp:59-71: ``optimize(selection)``) — ~12
-iterations of 6x6 solves per hypothesis. On TPU that is the single most
-expensive part of the pose stage once everything is vmapped. These solvers
+iterations of 6x6 solves per hypothesis, the most expensive part of the
+pose stage once everything is vmapped. These solvers
 replace the iterative seed with closed forms that vectorize to pure
 elementwise math (triad alignment) or a quartic companion eigensolve
 (Grunert P3P, BASELINE config 1), after which one or two GN polish
@@ -47,7 +47,7 @@ def rigid_align_3pt(p: jax.Array, q: jax.Array
     Triad (TRIAD attitude determination) construction: build an orthonormal
     frame from each triangle and compose; exact for congruent triangles, a
     robust hypothesis seed under noise. No SVD, no iteration — batches to
-    pure vector math, the TPU-friendly replacement for the reference's
+    pure vector math, the batched replacement for the reference's
     per-sample GN (StereoVisualOdometry.cpp:59-71).
 
     Args:
@@ -58,7 +58,7 @@ def rigid_align_3pt(p: jax.Array, q: jax.Array
     """
     Bp, ok_p = _triad_basis(p)
     Bq, ok_q = _triad_basis(q)
-    # full f32 products: the TPU's default mixed-bf16 matmul costs ~3e-3 of
+    # full f32 products: a reduced-precision matmul (bf16 passes) costs ~3e-3 of
     # rotation accuracy, which the downstream GN polish would have to repair
     R = jnp.einsum("...ik,...jk->...ij", Bq, Bp, precision="highest")
     pc = jnp.mean(p, axis=-2)
@@ -102,7 +102,8 @@ def rigid_align_umeyama(p: jax.Array, q: jax.Array, weights: jax.Array | None
 
 def _cubic_largest_real_root(B, C, D):
     """Largest real root of t^3 + B t^2 + C t + D, branch-free (jnp.where
-    over the discriminant cases; no eig — TPU has no `eig` lowering)."""
+    over the discriminant cases; no eig — XLA has no batched
+    non-symmetric `eig` on accelerators)."""
     P = C - B * B / 3.0
     Q = 2.0 * B**3 / 27.0 - B * C / 3.0 + D
     disc = (Q / 2.0) ** 2 + (P / 3.0) ** 3

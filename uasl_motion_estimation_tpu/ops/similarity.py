@@ -1,12 +1,12 @@
 """Patch similarity measures: entropy, mutual information, ZNCC.
 
-TPU-native re-design of the reference's mutual-information core
+Batched JAX re-design of the reference's mutual-information core
 (reference: include/MotionEstimation/core/mutual_information.h:16-24,
 src/core/mutual_information.cpp:14-140). The scalar double-loops over OpenCV
 histograms become batched one-hot matmuls: a patch of P pixels quantized to
 ``bins`` levels is a (P, bins) one-hot matrix ``O``; the joint histogram of two
-patches is ``O_a^T @ O_b`` — a tiny matmul that the MXU executes for thousands
-of patches at once under ``vmap``.
+patches is ``O_a^T @ O_b`` — a tiny matmul, batched over thousands of patches
+at once under ``vmap``.
 
 All functions accept arbitrary leading batch dims; patches are flattened
 internally. Intensities are expected in [0, 256) (uint8-like), matching the
@@ -61,8 +61,8 @@ def joint_histogram(img_a: jax.Array, img_b: jax.Array, bins: int = DEFAULT_BINS
     """Normalized joint histogram (..., bins, bins) via one-hot matmul.
 
     Replaces the 2-channel calcHist of ``computeMutualInformation``
-    (mutual_information.cpp:70-76); this formulation (O_a^T @ O_b) runs on the
-    MXU and vmaps over patch batches.
+    (mutual_information.cpp:70-76); this formulation (O_a^T @ O_b) is a
+    matmul and vmaps over patch batches.
     """
     a = _one_hot(_flatten_patch(img_a), bins)
     b = _one_hot(_flatten_patch(img_b), bins)
@@ -85,40 +85,6 @@ def mutual_information(img_a: jax.Array, img_b: jax.Array, bins: int = DEFAULT_B
     valid = (pj > 0) & (denom > 0)
     ratio = jnp.where(valid, pj / jnp.where(valid, denom, 1.0), 1.0)
     return jnp.sum(jnp.where(valid, pj * jnp.log2(ratio), 0.0), axis=(-2, -1))
-
-
-def mutual_information_batched(
-    img_a: jax.Array,
-    img_b: jax.Array,
-    bins: int = DEFAULT_BINS,
-    use_pallas: bool | None = None,
-) -> jax.Array:
-    """MI over broadcastable patch batches, routed to the fastest backend.
-
-    On TPU the Pallas VMEM joint-histogram kernel (ops/pallas/mi.py) scores
-    the pairs without materializing the (pairs, pixels, bins) one-hot tensor
-    in HBM — at MI cost-volume scale (500 feats x 64-128 disparities) the
-    jnp formulation moves ~GBs of one-hot traffic for kilobytes of scores.
-    Elsewhere (CPU tests, the virtual mesh) the jnp path runs; both compute
-    the same quantized 20-bin MI (parity-tested, tests/test_pallas_mi.py).
-
-    ``use_pallas``: None = auto (kernel iff the backend supports TPU
-    kernels); True/False forces a path (True on CPU runs the interpreter —
-    test-only).
-    """
-    if use_pallas is None:
-        from .pallas.support import tpu_kernels_supported
-
-        use_pallas = tpu_kernels_supported()
-    if not use_pallas:
-        return mutual_information(img_a, img_b, bins)
-    from .pallas.mi import mutual_information_pallas
-
-    shape = jnp.broadcast_shapes(img_a.shape, img_b.shape)
-    return mutual_information_pallas(
-        jnp.broadcast_to(img_a, shape), jnp.broadcast_to(img_b, shape),
-        bins=bins,
-    )
 
 
 def ncc(img_a: jax.Array, img_b: jax.Array, eps: float = 1e-12) -> jax.Array:

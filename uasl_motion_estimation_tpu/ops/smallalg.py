@@ -1,14 +1,11 @@
 """Batched small-matrix decompositions in pure jnp (no XLA custom calls).
 
 XLA lowers ``jnp.linalg.eigh``/``svd``/``det`` to LAPACK-style custom calls
-that cost MILLISECONDS per batched evaluation for tiny matrices on TPU
-(measured on v5e, amortized in-jit: eigh 9x9 @ batch 200 = 5.3 ms, svd 3x3
-@ 600 = 5.2 ms, eigh 4x4 @ 1280 = 7.2 ms — each one comparable to an entire
-front-end stage). The mono VO solver's RANSAC alone evaluates hundreds of
-them per frame, so the custom calls, not the math, set its throughput.
+built for one large matrix, not for thousands of tiny ones. The mono VO
+solver's RANSAC alone evaluates hundreds of them per frame.
 
 This module provides the same decompositions as fixed-iteration, branch-free
-jnp programs that vectorize over arbitrary batch dims on the VPU:
+jnp programs that vectorize over arbitrary batch dims:
 
 * ``eigh_jacobi`` — cyclic Jacobi for symmetric n x n (n static, <= ~16):
   unrolled sweeps of (p, q) Givens rotations applied as batched rank-2 row/
@@ -51,7 +48,7 @@ def eigh_jacobi(M: jax.Array, sweeps: int = 6) -> tuple[jax.Array, jax.Array]:
     Parallel-ordered cyclic Jacobi: each step applies a whole ROUND of
     disjoint Givens rotations as one batched n x n similarity transform
     (n/2 rotations per sequential step instead of one — the sequential
-    depth, not FLOPs, dominates on TPU at these sizes). ``n`` static.
+    depth, not FLOPs, dominates at these sizes). ``n`` static.
     """
     n = M.shape[-1]
     batch = M.shape[:-2]

@@ -1,20 +1,16 @@
-"""ZNCC disparity cost volume — the TPU-native epipolar matcher core.
+"""ZNCC disparity cost volume — the batched epipolar matcher core.
 
 Replaces the reference's per-ROI ``applyCCOEFFNormed``
 (src/core/mutual_information.cpp:136-140) scaled to all features x
 disparities at once.
 
-Design (v2, measured on TPU v5e): score only what is needed. For each of the
+Design: score only what is needed. For each of the
 N features, gather ONE horizontal strip of the right image covering all D
 candidate windows (a single (N, K, D+K-1) gather), then compute the whole
 (N, D) ZNCC volume as batched einsums over shifted strip views — the cross
-term is a (K*K)x(D) matvec per feature that lands on the MXU. Total compute
-is ~N*D*K^2 MACs (~15 MFLOP for 500 feats x 128 disparities x 11x11), with
-no sequential scan and no full-image work.
-
-(The previous formulation computed dense box-filtered ZNCC over the full
-image inside a 128-step ``lax.scan``; it was VPU-regular but serialized —
-363 ms/frame on the real chip vs <2 ms for this one.)
+term is a (K*K)x(D) matvec per feature. Total compute is ~N*D*K^2 MACs
+(~15 MFLOP for 500 feats x 128 disparities x 11x11), with no sequential
+scan and no full-image work.
 """
 
 from __future__ import annotations
@@ -67,9 +63,8 @@ def zncc_disparity_scores(
         d_offset = jnp.zeros_like(xi)
 
     # one strip per feature covering every candidate window: true columns
-    # [xi - d0 - (D-1) - r, xi - d0 + r]; one block copy per feature (Pallas
-    # DMA on TPU, ops/pallas/gather.py) — out-of-bounds candidates are
-    # masked below
+    # [xi - d0 - (D-1) - r, xi - d0 + r]; one tile gather per feature —
+    # out-of-bounds candidates are masked below
     strip_w = d_max + 2 * r
     strip_anchor = jnp.stack([xi - d_offset - (d_max - 1) - r, yi - r], -1)
     strip = im.extract_tiles(right, strip_anchor, k, strip_w)  # (N, K, S)
@@ -81,8 +76,7 @@ def zncc_disparity_scores(
     tnorm = jnp.sqrt(jnp.maximum(jnp.sum(tpl0 * tpl0, axis=(-2, -1)), eps))
 
     # Window moments WITHOUT materializing the (N, K, K, D) shifted-view
-    # tensor (measured 0.58 ms/frame of HBM traffic in round 2's in-situ
-    # ablation, benchmarks/zncc_internals.json): column sums + cumsum
+    # tensor (N*K*K*D floats of device-memory traffic): column sums + cumsum
     # differencing give every window's s1/s2 in O(K*S). The strip is centered
     # at 128 first so the f32 cumsums keep ~1e-5 relative precision (ZNCC is
     # shift-invariant: tpl0 is zero-mean and var ignores the offset).

@@ -57,7 +57,7 @@ def _sweep_body(problem: BAProblem, cfg: BAConfig, axis_name: str,
         # within-device shift: window j's head <- window j-1's tail
         heads_new = jnp.roll(tails, 1, axis=0)
         # across the device boundary: local window 0's head <- the LEFT
-        # device's LAST window tail (one ppermute hop over ICI)
+        # device's LAST window tail (one ppermute hop)
         from_left = jax.lax.ppermute(
             tails[-1], axis_name,
             perm=[(d, d + 1) for d in range(n_dev - 1)],

@@ -10,8 +10,8 @@ best-support motion install, which consumes gathered per-window outputs).
 This is the production multi-chip shape for the integrated system,
 complementing the segment-sharded plain-VO path (parallel/segments.py) and
 the halo-exchange window-BA refinement (parallel/ba_windows.py). Frame
-stacks are passed replicated here (read-only inputs; on a pod each host
-feeds only the frame span its windows touch — window spans are contiguous,
+stacks are passed replicated here (read-only inputs; across hosts each
+host feeds only the frame span its windows touch — window spans are contiguous,
 so the per-device working set is span = (k_local-1)*stride + window
 frames regardless of sequence length).
 

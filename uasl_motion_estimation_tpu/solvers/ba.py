@@ -1,7 +1,7 @@
 """Windowed bundle adjustment: batched Levenberg-Marquardt with dense Schur
 complement elimination of landmarks.
 
-TPU-native re-design of the reference's Ceres-based ``BundleAdjuster<M>``
+Batched JAX re-design of the reference's Ceres-based ``BundleAdjuster<M>``
 (reference: include/MotionEstimation/optimisation/BundleAdjuster.h:183-528).
 The Ceres SPARSE_SCHUR solve over an irregular observation graph becomes a
 fixed-shape dense-block computation over a (window, track) observation table:
@@ -13,7 +13,7 @@ fixed-shape dense-block computation over a (window, track) observation table:
 * jacobians: autodiff (jax.jacfwd) over the same angle-axis + translation
   camera parametrization Ceres autodiffs (h:297-310);
 * normal equations: per-frame 6x6 blocks U, per-point 3x3 blocks V, and the
-  dense (W, M, 6, 3) coupling — all einsums on the MXU;
+  dense (W, M, 6, 3) coupling — all batched einsums;
 * Schur: landmarks eliminated in parallel (batched 3x3 inverses), reduced
   camera system is a dense (6W, 6W) solve (W <= ~10, so <= 60x60 — tiny);
 * gauge fixing: the first ``n_fixed`` frames' rows/cols of the reduced system
@@ -141,7 +141,7 @@ def _robust_cost(r: jax.Array, mask: jax.Array, delta: float) -> jax.Array:
 
 def _normal_blocks(cam, pts, obs, mask, cfg: BAConfig):
     # full-f32 products: the normal-equation blocks are numerically delicate
-    # and the TPU's default bf16-mixed matmul precision degrades convergence
+    # and a reduced-precision default (bf16 passes, TF32) degrades convergence
     ein = partial(jnp.einsum, precision="highest")
     r, Jc, Jp = _residuals_jacobians(cam, pts, obs, cfg)
     w = _huber_weights(r, mask, cfg.huber_delta)[..., None, None]  # (W,M,1,1)
@@ -227,11 +227,11 @@ def ba_solve(problem: BAProblem, cfg: BAConfig) -> BAResult:
     vmap over a leading window axis for window-parallel multi-device BA.
     """
     # The normal-equation products (J^T J, Schur complement) are tiny
-    # matmuls whose conditioning carries the solve: under the TPU's default
-    # bf16-pass f32 dot the LM steps degrade to the point of non-convergence
-    # at KITTI pixel scales (measured: identical problem converges in 5
-    # iterations on CPU, never on TPU; 2-3 deg rotation errors). Force full
-    # f32 — the dims are far too small for MXU throughput to matter.
+    # matmuls whose conditioning carries the solve: under a bf16-pass f32
+    # dot the LM steps degrade to the point of non-convergence at KITTI
+    # pixel scales (the identical problem converges in 5 iterations at full
+    # f32; 2-3 deg rotation errors otherwise). Force full f32 — the dims are
+    # far too small for matrix-unit throughput to matter.
     with jax.default_matmul_precision("highest"):
         return _ba_solve_impl(problem, cfg)
 

@@ -1,6 +1,6 @@
 """Generic Gauss-Newton / Levenberg-Marquardt engine, batched and jittable.
 
-TPU-native re-design of the reference's templated ``Optimiser<State, Obs>``
+Batched JAX re-design of the reference's templated ``Optimiser<State, Obs>``
 (reference: include/MotionEstimation/optimisation/optimisation.h:100-125,
 src/optimisation/optimisation.cpp:30-147, 674-730) and of the inner loop of
 ``StereoVisualOdometry::optimize`` (src/vo/StereoVisualOdometry.cpp:165-283).
@@ -9,7 +9,7 @@ The C++ version is a sequential loop with data-dependent exits; here the same
 damping schedule and stop conditions run inside ``lax.while_loop`` with a
 per-problem ``active`` flag, so the solver can be ``vmap``-ed over hundreds of
 independent problems (RANSAC hypotheses, BA windows) at once — the batched
-6x6 / KxK normal-equation solves are where the MXU earns its keep.
+6x6 / KxK normal-equation solves are where the batching pays.
 
 The problem is supplied as a ``normal_eq_fn(x) -> (JJ, Jr, cost)`` callback
 (cost = sum of squared residuals, or the objective being maximized when

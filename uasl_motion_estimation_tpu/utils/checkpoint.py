@@ -5,8 +5,10 @@ via FrameInfo.fframe (reference: include/MotionEstimation/core/file_IO.h:42-64
 and the ImageReader seek loop, file_IO.h:319-322) plus keyboard pause/resume
 (IOSigHandler, file_IO.h:159-182). This module gives the real thing the
 survey calls for (SURVEY.md section 5, checkpoint/resume): the full session
-state — pose chain, active track table, BA window poses, RNG key, frame
-index — keyed by frame number, so a run can stop and restart bit-exactly.
+state — pose chain, keyframe anchor, active track table, BA window, RNG key,
+frame index — keyed by frame number, so a run can stop and restart
+bit-exactly. Which fields make up the state is ``OdometrySystem``'s
+business (``get_state`` / ``set_state``); this module only stores them.
 
 Plain .npz on purpose: the state is a few MB of arrays, and a dependency-free
 format stays readable from any tool.
@@ -17,37 +19,15 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 
-FORMAT_VERSION = 1
+FORMAT_VERSION = 2
 
 
 def save_checkpoint(path: str, system) -> None:
     """Serialize an OdometrySystem (models/odometry.py) to ``path`` (.npz)."""
-    from ..models.odometry import OdometrySystem  # noqa: F401 (type doc)
-
-    table = system.table
-    arrays = {
-        "pose": np.asarray(system.pose),
-        "trajectory": np.asarray(system.trajectory),
-        "window_poses": np.asarray(system.window_poses)
-        if system.window_poses else np.zeros((0, 4, 4)),
-        "key": np.asarray(jax.random.key_data(system.key)),
-        "prev_left": np.asarray(system.prev_left)
-        if system.prev_left is not None else np.zeros((0, 0)),
-    }
-    if table is not None:
-        for name in ("uv", "obs_mask", "active", "track_id", "pt3d",
-                     "pt3d_valid", "next_id", "n_frames"):
-            arrays[f"table_{name}"] = np.asarray(getattr(table, name))
-    meta = {
-        "version": FORMAT_VERSION,
-        "frame_idx": system.frame_idx,
-        "has_table": table is not None,
-        "use_ba": system.use_ba,
-    }
+    arrays = system.get_state()
+    meta = {"version": FORMAT_VERSION}
     arrays["meta"] = np.frombuffer(
         json.dumps(meta).encode(), dtype=np.uint8
     ).copy()
@@ -56,34 +36,11 @@ def save_checkpoint(path: str, system) -> None:
 
 def load_checkpoint(path: str, system) -> None:
     """Restore state saved by save_checkpoint into ``system`` (in place)."""
-    from ..models import tracks as tr
-
-    data = np.load(path, allow_pickle=False)
-    meta = json.loads(bytes(data["meta"]).decode())
-    if meta["version"] != FORMAT_VERSION:
-        raise ValueError(f"checkpoint version {meta['version']} unsupported")
-
-    system.pose = data["pose"]
-    system.trajectory = [p for p in data["trajectory"]]
-    system.window_poses = [p for p in data["window_poses"]]
-    system.key = jax.random.wrap_key_data(jnp.asarray(data["key"]))
-    system.frame_idx = int(meta["frame_idx"])
-    system.use_ba = bool(meta["use_ba"])
-    prev = data["prev_left"]
-    system.prev_left = jnp.asarray(prev) if prev.size else None
-    if meta["has_table"]:
-        system.table = tr.TrackTable(
-            uv=jnp.asarray(data["table_uv"]),
-            obs_mask=jnp.asarray(data["table_obs_mask"]),
-            active=jnp.asarray(data["table_active"]),
-            track_id=jnp.asarray(data["table_track_id"]),
-            pt3d=jnp.asarray(data["table_pt3d"]),
-            pt3d_valid=jnp.asarray(data["table_pt3d_valid"]),
-            next_id=jnp.asarray(data["table_next_id"]),
-            n_frames=jnp.asarray(data["table_n_frames"]),
-        )
-    else:
-        system.table = None
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(bytes(data["meta"]).decode())
+        if meta["version"] != FORMAT_VERSION:
+            raise ValueError(f"checkpoint version {meta['version']} unsupported")
+        system.set_state({k: data[k] for k in data.files if k != "meta"})
 
 
 def checkpoint_every(system, directory: str, every: int = 50) -> str | None:

@@ -5,7 +5,7 @@ Host-side matplotlib/numpy re-design of the reference's gui module — the
 interactive OpenCV windows (Graph2D raster plotter, Graph2D.h:26-90;
 cv::viz Graph3D thread, Graph3D.h:27-93; live overlays, gui_utils.h:20-37)
 become figure-producing functions for headless analysis, which is the only
-mode that makes sense next to a TPU job. Each function returns the
+mode that makes sense next to an accelerator job. Each function returns the
 matplotlib figure (and optionally saves it) rather than opening a window.
 """
 
